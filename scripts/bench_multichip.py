@@ -3,12 +3,11 @@ n-device mesh, report seqs/sec/chip + scaling efficiency vs a
 single-chip run of the same code, and assert the comm-budget
 invariants from the compiled HLO on the way (VERDICT r2 item 6).
 
-On a REAL slice this is the one command the multi-chip north star is
-waiting for:
+On a multi-GPU host (one JAX process drives every card):
 
     python scripts/bench_multichip.py                    # all devices
 
-On this box (1 physical chip) wiring is validated on the virtual mesh:
+Without one, wiring is validated on the virtual CPU mesh:
 
     python scripts/bench_multichip.py --virtual --devices 8 --small
 
@@ -76,7 +75,7 @@ def _time_min(fn, iters: int) -> float:
 
 
 def build_decode(model, cfg, batch, sample_m, steps, mesh, tp_vars=None):
-  from svdd_tpu import mdlm
+  from svdd import mdlm
 
   if tp_vars is not None:
     vm, vv = tp_vars
@@ -84,7 +83,7 @@ def build_decode(model, cfg, batch, sample_m, steps, mesh, tp_vars=None):
         variables, mdlm.transform_samples(tok)), vv)
     return model.controlled_sampler(value, batch, sample_M=sample_m,
                                     num_steps=steps, mesh=mesh, tp=True)
-  from svdd_tpu import rewards
+  from svdd import rewards
   reward_fn = rewards.synthetic_motif_oracle(cfg.model.length)
   value_fn = lambda tok: reward_fn(mdlm.transform_samples(tok))
   return model.controlled_sampler(value_fn, batch, sample_M=sample_m,
@@ -115,16 +114,17 @@ def main() -> None:
     _force_virtual_cpu(args.devices or 8)
 
   import jax
-  jax.config.update('jax_compilation_cache_dir', '/root/.jax_cache')
-  jax.config.update('jax_persistent_cache_min_compile_time_secs', 5)
   import jax.numpy as jnp
   import numpy as np
 
-  from svdd_tpu.config import dna_config, tiny_test_config
-  from svdd_tpu.diffusion import Diffusion
-  from svdd_tpu.models.enformer import EnformerValueModel
-  from svdd_tpu.parallel import mesh as M
-  from svdd_tpu.train import diffusion as train_diff
+  from svdd import utils
+  utils.enable_compile_cache()
+
+  from svdd.config import dna_config, tiny_test_config
+  from svdd.diffusion import Diffusion
+  from svdd.models.enformer import EnformerValueModel
+  from svdd.parallel import mesh as M
+  from svdd.train import diffusion as train_diff
 
   n = args.devices or len(jax.devices())
   devices = jax.devices()[:n]

@@ -137,12 +137,12 @@ def main() -> None:
   import jax.numpy as jnp
   jax.config.update('jax_platforms', 'cpu')
 
-  from svdd_tpu import mdlm
-  from svdd_tpu.config import tiny_test_config
-  from svdd_tpu.diffusion import Diffusion
-  from svdd_tpu.models.enformer import EnformerValueModel
-  from svdd_tpu.parallel import mesh as M
-  from svdd_tpu.train import diffusion as train_diff
+  from svdd import mdlm
+  from svdd.config import tiny_test_config
+  from svdd.diffusion import Diffusion
+  from svdd.models.enformer import EnformerValueModel
+  from svdd.parallel import mesh as M
+  from svdd.train import diffusion as train_diff
 
   n = args.devices
   devices = jax.devices()[:n]
@@ -182,7 +182,7 @@ def main() -> None:
   cfg = tiny_test_config('dna')
   cfg.loader.batch_size = 2 * n
   model = Diffusion(cfg, rng=jax.random.key(0))
-  from svdd_tpu import rewards
+  from svdd import rewards
   reward_fn = rewards.synthetic_motif_oracle(cfg.model.length)
   value_fn = lambda tok: reward_fn(mdlm.transform_samples(tok))
   sampler = model.controlled_sampler(

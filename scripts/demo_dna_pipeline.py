@@ -35,8 +35,9 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-jax.config.update('jax_compilation_cache_dir', '/root/.jax_cache')
-jax.config.update('jax_persistent_cache_min_compile_time_secs', 5)
+from svdd import utils  # noqa: E402
+
+utils.enable_compile_cache()
 
 T0 = time.perf_counter()
 RESULTS = {}
@@ -46,16 +47,16 @@ def phase(m):
   print(f'+{time.perf_counter()-T0:7.1f}s {m}', flush=True)
 
 
-from svdd_tpu import mdlm, value as value_lib
-from svdd_tpu.config import dna_config
-from svdd_tpu.data.gosai import FaultTolerantIterator, GosaiDataset
-from svdd_tpu.decode import run_decode
-from svdd_tpu.diffusion import Diffusion
-from svdd_tpu.eval.metrics import quantile_report
-from svdd_tpu.models.enformer import EnformerValueModel
-from svdd_tpu.models import ema as ema_lib
-from svdd_tpu.train import diffusion as train_diff
-from svdd_tpu.train import value as train_val
+from svdd import mdlm, value as value_lib
+from svdd.config import dna_config
+from svdd.data.gosai import FaultTolerantIterator, GosaiDataset
+from svdd.decode import run_decode
+from svdd.diffusion import Diffusion
+from svdd.eval.metrics import quantile_report
+from svdd.models.enformer import EnformerValueModel
+from svdd.models import ema as ema_lib
+from svdd.train import diffusion as train_diff
+from svdd.train import value as train_val
 
 cfg = dna_config()
 cfg.optim.warmup_steps = 50
@@ -201,7 +202,7 @@ rows = {
 if ARGS.m_schedule:
   # scheduled-M SVDD-MC under the SAME trained nets: the quality gate
   # for the frontier candidate (VERDICT r4 item 2)
-  from svdd_tpu.utils import parse_m_schedule
+  from svdd.utils import parse_m_schedule
   msched = parse_m_schedule(ARGS.m_schedule)
   mcs = run_decode(model, oracle_pair, algo='svdd_mc',
                    value_fn=(value_apply, value_vars),

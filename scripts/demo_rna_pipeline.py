@@ -29,8 +29,9 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-jax.config.update('jax_compilation_cache_dir', '/root/.jax_cache')
-jax.config.update('jax_persistent_cache_min_compile_time_secs', 5)
+from svdd import utils  # noqa: E402
+
+utils.enable_compile_cache()
 
 T0 = time.perf_counter()
 RESULTS = {}
@@ -40,21 +41,21 @@ def phase(m):
   print(f'+{time.perf_counter()-T0:7.1f}s {m}', flush=True)
 
 
-from svdd_tpu import mdlm, rewards, value as value_lib
-from svdd_tpu.config import rna_config
-from svdd_tpu.data.gosai import FaultTolerantIterator, GosaiDataset
-from svdd_tpu.decode import run_decode
-from svdd_tpu.diffusion import Diffusion
-from svdd_tpu.eval.metrics import kmer_pearson, quantile_report
-from svdd_tpu.data.gosai import batch_dna_detokenize
-from svdd_tpu.models.convgru import ConvGRUValueModel
-from svdd_tpu.train import diffusion as train_diff
-from svdd_tpu.train import value as train_val
+from svdd import mdlm, rewards, value as value_lib
+from svdd.config import rna_config
+from svdd.data.gosai import FaultTolerantIterator, GosaiDataset
+from svdd.decode import run_decode
+from svdd.diffusion import Diffusion
+from svdd.eval.metrics import kmer_pearson, quantile_report
+from svdd.data.gosai import batch_dna_detokenize
+from svdd.models.convgru import ConvGRUValueModel
+from svdd.train import diffusion as train_diff
+from svdd.train import value as train_val
 
 cfg = rna_config()
 cfg.optim.warmup_steps = 50
 cfg.optim.lr = 1e-3
-cfg.loader.batch_size = 16   # B>64 train steps crash the remote TPU compiler (LLO bug)
+cfg.loader.batch_size = 16
 L = cfg.model.length
 
 # ---------------------------------------------------------------- stage 1
@@ -76,7 +77,7 @@ for i in range(1200):
 RESULTS['diffusion_loss_first'] = losses[0]
 RESULTS['diffusion_loss_last'] = float(loss)
 # use EMA params for everything downstream (reference eval semantics)
-from svdd_tpu.models import ema as ema_lib
+from svdd.models import ema as ema_lib
 model.variables = {'params': ema_lib.params(state.ema), **state.extras}
 phase(f'diffusion pretrained: loss {losses[0]:.3f} -> {float(loss):.3f}')
 

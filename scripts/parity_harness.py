@@ -1,7 +1,7 @@
 """One-command real-artifact parity harness (VERDICT r1 item 7).
 
 Points at the reference's artifact/data layout, imports the torch
-diffusion/value/oracle checkpoints (svdd_tpu/importers), runs all six
+diffusion/value/oracle checkpoints (svdd/importers), runs all six
 decode CLIs, and prints the eval/report.py quantile table against the
 reference's shipped numbers (BASELINE.md).
 
@@ -29,7 +29,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-from svdd_tpu import utils
+from svdd import utils
 
 LOGGER = utils.get_logger('parity_harness')
 
@@ -73,16 +73,13 @@ def make_fixtures(root: str, task: str) -> None:
   import torch_mirrors as tm
 
   assert task == 'rna', 'fixtures are RNA-size (CPU-friendly)'
-  # diffusion: the reference's actual CNNModel at the RNA config
+  # diffusion: the reference-layout CNNModel mirror at the RNA config
   # (configs_gosai_rna/model/dnaconv.yaml: hidden 128, 4 stacks)
-  sys.path.insert(0, '/root/reference')
-  from models import dnaconv                     # type: ignore
-  sys.path.pop(0)
   args = types.SimpleNamespace(clean_data=False, hidden_dim=128,
                                num_cnn_stacks=4, dropout=0.0,
                                cls_free_guidance=False)
   torch.manual_seed(0)
-  cnn = dnaconv.CNNModel(args, alphabet_size=5, num_cls=3)
+  cnn = tm.CNNModel(args, alphabet_size=5, num_cls=3)
   d = os.path.join(root, 'RNA_Diffusion:v0')
   os.makedirs(d, exist_ok=True)
   torch.save({'state_dict': {'backbone.' + k: v for k, v in
@@ -112,7 +109,7 @@ ALGOS = ('mc', 'tweedie', 'TDS', 'DPS', 'DG', 'classfier')
 
 
 def run_all(args) -> list[str]:
-  from svdd_tpu.cli import common
+  from svdd.cli import common
   paths = resolve_artifacts(args.artifacts_dir, args.task)
   for kind, p in paths.items():
     if p is None:
@@ -144,24 +141,24 @@ def run_all(args) -> list[str]:
       if args.algos != 'all' else list(ALGOS)
   for algo in selected:
     if algo == 'mc':
-      from svdd_tpu.cli import decode as cli
+      from svdd.cli import decode as cli
       extra, suffix = [], ''
     elif algo == 'tweedie':
-      from svdd_tpu.cli import decode_tweedie as cli
+      from svdd.cli import decode_tweedie as cli
       extra, suffix = ['--tweedie', 'True'], '_tw'
     elif algo == 'TDS':
-      from svdd_tpu.cli import decode_TDS as cli
+      from svdd.cli import decode_TDS as cli
       extra, suffix = ['--alpha', str(args.alpha)], '_TDS'
     elif algo == 'DPS':
-      from svdd_tpu.cli import decode_DPS as cli
+      from svdd.cli import decode_DPS as cli
       extra, suffix = ['--guidance_scale',
                        str(args.guidance_scale)], '_DPS'
     elif algo == 'DG':
-      from svdd_tpu.cli import decode_DPS as cli
+      from svdd.cli import decode_DPS as cli
       extra, suffix = ['--guidance_scale',
                        str(args.guidance_scale)], '_DG'
     else:
-      from svdd_tpu.cli import decode_classfier as cli
+      from svdd.cli import decode_classfier as cli
       extra, suffix = ['--guidance_scale', '1.0'], '-classfier'
 
     parser = common.make_parser(f'parity:{algo}')
@@ -210,7 +207,7 @@ def main() -> None:
 
   outputs = run_all(args)
 
-  from svdd_tpu.eval.report import report_file
+  from svdd.eval.report import report_file
   print('\n===== parity report (reference numbers from BASELINE.md'
         ' in brackets) =====')
   for path in outputs:

@@ -37,10 +37,10 @@ def main() -> None:
   jax.config.update('jax_platforms', 'cpu')
 
   from jax.sharding import PartitionSpec as P
-  from svdd_tpu.config import tiny_test_config
-  from svdd_tpu.diffusion import Diffusion
-  from svdd_tpu.parallel import mesh as M
-  from svdd_tpu.train import diffusion as train_diff
+  from svdd.config import tiny_test_config
+  from svdd.diffusion import Diffusion
+  from svdd.parallel import mesh as M
+  from svdd.train import diffusion as train_diff
 
   n = args.devices
 

@@ -1,8 +1,8 @@
-"""AOT sampler serialization round-trip (svdd_tpu/aot.py).
+"""AOT sampler serialization round-trip (svdd/aot.py).
 
 The exported artifact must reproduce the live jitted sampler exactly
 (same program, same key, same params) and must survive a fresh
-deserialize with no svdd_tpu model code on the call path.
+deserialize with no svdd model code on the call path.
 """
 import os
 
@@ -10,9 +10,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from svdd_tpu import aot, mdlm, rewards
-from svdd_tpu.config import tiny_test_config
-from svdd_tpu.diffusion import Diffusion
+from svdd import aot, mdlm, rewards
+from svdd.config import tiny_test_config
+from svdd.diffusion import Diffusion
 
 
 def _mc_sampler():
@@ -69,9 +69,9 @@ def test_aot_compiled_executable_roundtrip(tmp_path):
 def test_aot_cache_in_run_decode(tmp_path, monkeypatch):
   """SVDD_AOT_CACHE: first run_decode exports the artifact, second
   loads it (no compile) and reproduces the run exactly."""
-  from svdd_tpu import decode, mdlm, rewards
-  from svdd_tpu.config import tiny_test_config
-  from svdd_tpu.diffusion import Diffusion
+  from svdd import decode, mdlm, rewards
+  from svdd.config import tiny_test_config
+  from svdd.diffusion import Diffusion
 
   monkeypatch.setenv('SVDD_AOT_CACHE', str(tmp_path))
   cfg = tiny_test_config('rna')
@@ -91,9 +91,9 @@ def test_aot_tds_dict_aux_roundtrip(tmp_path):
   """The TDS sampler's ESS-telemetry aux is a DICT carry (r5): the
   exported executable must serialize/restore the dict result treedef
   and reproduce samples + the ESS trace exactly."""
-  from svdd_tpu import rewards
-  from svdd_tpu.config import tiny_test_config
-  from svdd_tpu.diffusion import Diffusion
+  from svdd import rewards
+  from svdd.config import tiny_test_config
+  from svdd.diffusion import Diffusion
 
   cfg = tiny_test_config('rna')
   model = Diffusion(cfg, rng=jax.random.key(0))

@@ -3,10 +3,9 @@
 The per-module importer tests prove flax == torch for every net; these
 tests close the remaining gap: the WHOLE guided algorithm, run
 head-to-head. The torch side executes the reference's decode loops
-(tests/torch_decode_mirror.py — the line-cited algorithm around the
-reference's OWN models/dnaconv.py CNNModel, imported from
-/root/reference); the jax side decodes with the SAME weights carried
-through importers.cnn. RNG streams differ by construction, so the
+(tests/torch_decode_mirror.py — the line-cited algorithm around a
+reference-faithful torch CNNModel, tests/torch_mirrors.py); the jax side
+decodes with the SAME weights carried through importers.cnn. RNG streams differ by construction, so the
 assertion is the BASELINE.json bar: reward-distribution agreement —
 two-sample KS test + quantile tolerances at N=256 per side.
 
@@ -15,7 +14,6 @@ motif score implemented identically in numpy/torch/jax so neither side
 carries net-import noise into the distribution comparison.
 """
 
-import sys
 import types
 
 import numpy as np
@@ -34,12 +32,8 @@ KS_PVAL = 1e-3
 
 
 def _load_reference_dnaconv():
-  sys.path.insert(0, '/root/reference')
-  try:
-    from models import dnaconv  # type: ignore
-    return dnaconv
-  finally:
-    sys.path.pop(0)
+  import torch_mirrors
+  return torch_mirrors
 
 
 @pytest.fixture(scope='module')
@@ -58,9 +52,9 @@ def harness():
   tmodel.eval()
   tden = tdm.TorchDenoiser(tmodel, time_conditioning=False)
 
-  from svdd_tpu.config import tiny_test_config
-  from svdd_tpu.diffusion import Diffusion
-  from svdd_tpu.importers.cnn import import_cnn_params
+  from svdd.config import tiny_test_config
+  from svdd.diffusion import Diffusion
+  from svdd.importers.cnn import import_cnn_params
   cfg = tiny_test_config('rna')
   cfg.model.hidden_dim = 32
   cfg.model.num_cnn_stacks = 1
@@ -136,10 +130,10 @@ def learned_nets():
   mode with BatchNorm batch stats — the exact composition the
   reference's decode stack executes."""
   import torch_mirrors as tm
-  from svdd_tpu.importers.convgru import import_convgru_value_model
-  from svdd_tpu.importers.enformer import import_enformer_value_model
-  from svdd_tpu.models.convgru import ConvGRUValueModel
-  from svdd_tpu.models.enformer import EnformerValueModel
+  from svdd.importers.convgru import import_convgru_value_model
+  from svdd.importers.enformer import import_enformer_value_model
+  from svdd.models.convgru import ConvGRUValueModel
+  from svdd.models.enformer import EnformerValueModel
 
   torch.manual_seed(21)
   gru_mirror = tm.make_rna_value_mirror()
@@ -192,7 +186,7 @@ def _jax_net_scorer(model, variables):
   BOTH frameworks' outputs, so the distribution comparison isolates
   decode dynamics from scorer noise (importer exactness is pinned
   separately at atol 5e-5 in test_importers.py)."""
-  from svdd_tpu import mdlm
+  from svdd import mdlm
   apply = jax.jit(lambda toks: model.apply(
       variables, mdlm.transform_samples(toks)))
   return lambda tokens: np.asarray(apply(jnp.asarray(tokens)))
@@ -205,7 +199,7 @@ def test_svdd_mc_learned_convgru_net_matches_reference(harness,
   eval mode with batch stats, Enformer.py:399-478 + :1337-1426) —
   closes the r4 harness's linear-probe gap (VERDICT r4 item 1)."""
   h, nets = harness, learned_nets
-  from svdd_tpu import mdlm
+  from svdd import mdlm
   value_pair = (lambda vars_, toks: nets.gru_model.apply(
       vars_, mdlm.transform_samples(toks)), nets.gru_vars)
   sampler = h.jmodel.controlled_sampler(value_pair, B, sample_M=M,
@@ -349,7 +343,7 @@ def test_baseline_matches_reference(harness):
 def test_svdd_mc_matches_reference(harness):
   h = harness
   W_j = jnp.asarray(h.W)
-  from svdd_tpu import mdlm
+  from svdd import mdlm
   value_tok = lambda toks: (mdlm.transform_samples(toks)
                             * W_j).sum(axis=(-1, -2))
   sampler = h.jmodel.controlled_sampler(value_tok, B, sample_M=M,
@@ -372,7 +366,7 @@ def test_svdd_mc_scheduled_m_matches_reference(harness):
   with per-step M."""
   h = harness
   W_j = jnp.asarray(h.W)
-  from svdd_tpu import mdlm
+  from svdd import mdlm
   value_tok = lambda toks: (mdlm.transform_samples(toks)
                             * W_j).sum(axis=(-1, -2))
   sched = ((STEPS // 2, 2), (STEPS - STEPS // 2, M))
@@ -449,7 +443,7 @@ def test_tds_matches_reference(harness):
 
 def test_tds_alpha05_matched_degeneracy(harness):
   """TDS at the reference's PUBLISHED operating point alpha=0.5
-  (/root/reference/anoter_README.md:1): with this reward scale the
+  (reference anoter_README.md:1): with this reward scale the
   importance weights collapse and the resampled batch degenerates to a
   handful of ancestor lineages on BOTH frameworks — the matched
   failure mode, asserted directly (VERDICT r4 item 3). Our side
@@ -514,7 +508,7 @@ def test_analytic_sampler_matches_reference(harness):
   h = harness
   cfg = h.cfg.override()
   cfg.sampling.predictor = 'analytic'
-  from svdd_tpu.diffusion import Diffusion
+  from svdd.diffusion import Diffusion
   jm = Diffusion(cfg, rng=jax.random.key(0))
   jm.variables = h.jmodel.variables
   sampler = jm.sampler(B, num_steps=STEPS)
@@ -579,7 +573,7 @@ def test_tds_ratio_components_exact_parity(harness):
   pieces: reward_num / reward_den (tweedie posterior onehots at
   sigma_s) computed on the same (x, sample) pair agree elementwise
   (diffusion_gosai.py:1260-1281)."""
-  from svdd_tpu.sampling import guidance as G
+  from svdd.sampling import guidance as G
   h = harness
   x_t, x_j = _mid_state()
   b = x_t.shape[0]
@@ -611,7 +605,7 @@ def test_q_xs_exact_parity(harness):
   """DETERMINISTIC check of the reverse-transition density q_xs on the
   same state: mirror probs == exp of our log_q (diffusion_gosai.py:
   1185-1197 vs mdlm.log_q_xs)."""
-  from svdd_tpu import mdlm
+  from svdd import mdlm
   h = harness
   x_t, x_j = _mid_state()
   t, t_next = 0.6, 0.5

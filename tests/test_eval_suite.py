@@ -7,14 +7,14 @@ import jax
 import numpy as np
 import pytest
 
-from svdd_tpu.config import tiny_test_config
+from svdd.config import tiny_test_config
 
 
 def test_distribution_eval():
-  from svdd_tpu.diffusion import Diffusion
-  from svdd_tpu.data.gosai import GosaiDataset
-  from svdd_tpu.eval.validation import distribution_eval
-  from svdd_tpu import rewards
+  from svdd.diffusion import Diffusion
+  from svdd.data.gosai import GosaiDataset
+  from svdd.eval.validation import distribution_eval
+  from svdd import rewards
   cfg = tiny_test_config('rna')
   model = Diffusion(cfg, rng=jax.random.key(0))
   datasets = {'train': GosaiDataset('train', length=cfg.model.length),
@@ -30,7 +30,7 @@ def test_distribution_eval():
 
 
 def test_artifacts_registry():
-  from svdd_tpu import artifacts
+  from svdd import artifacts
   with pytest.raises(KeyError):
     artifacts.artifact_path('nope')
   with pytest.raises(FileNotFoundError):
@@ -44,7 +44,7 @@ def test_report_cli(tmp_path):
   p = tmp_path / 'rna-MRL.npz'
   np.savez(p, decoding=np.array([1.0, 2.0, 3.0]),
            baseline=np.array([0.1, 0.2, 0.3]))
-  from svdd_tpu.eval import report
+  from svdd.eval import report
   text = report.report_file(str(p))
   assert 'decoding' in text and 'reference:' in text
 
@@ -52,7 +52,7 @@ def test_report_cli(tmp_path):
 def test_train_oracle_learns():
   """Oracle trained on synthetic planted-motif labels should correlate
   with the labels far better than a random init."""
-  from svdd_tpu.cli import train_oracle
+  from svdd.cli import train_oracle
   import argparse
   args = argparse.Namespace(
       task='rna', length=16, batch_size=32, max_iters=60,
@@ -60,8 +60,8 @@ def test_train_oracle_learns():
       save_path=None, small=True)
   # run() logs val pearson; capture via the logger is awkward — call
   # the internals instead
-  from svdd_tpu.data.gosai import GosaiDataset, FaultTolerantIterator
-  from svdd_tpu.models.convgru import ConvGRUValueModel
+  from svdd.data.gosai import GosaiDataset, FaultTolerantIterator
+  from svdd.models.convgru import ConvGRUValueModel
   import jax.numpy as jnp
   import optax
   ds = GosaiDataset('train', length=16)
@@ -104,22 +104,22 @@ def test_train_oracle_learns():
 
 def test_yaml_config_presets():
   import glob
-  from svdd_tpu.config import Config
-  paths = sorted(glob.glob('svdd_tpu/configs/*.yaml'))
+  from svdd.config import Config
+  paths = sorted(glob.glob('svdd/configs/*.yaml'))
   assert len(paths) >= 3
   for p in paths:
     cfg = Config.from_yaml(p)
     assert cfg.vocab_size == cfg.alphabet_size + 1
-  dna = Config.from_yaml('svdd_tpu/configs/dna.yaml')
+  dna = Config.from_yaml('svdd/configs/dna.yaml')
   assert dna.model.length == 200 and dna.task == 'dna'
 
 
 def test_run_decode_npz_roundtrip(tmp_path):
   """decode.run_decode + save_npz: reference-compatible keys/shapes."""
-  from svdd_tpu.config import tiny_test_config
-  from svdd_tpu.diffusion import Diffusion
-  from svdd_tpu.decode import run_decode
-  from svdd_tpu import rewards
+  from svdd.config import tiny_test_config
+  from svdd.diffusion import Diffusion
+  from svdd.decode import run_decode
+  from svdd import rewards
   cfg = tiny_test_config('rna')
   model = Diffusion(cfg, rng=jax.random.key(0))
   reward = rewards.synthetic_motif_oracle(cfg.model.length)
@@ -142,7 +142,7 @@ def test_generative_perplexity_tiny_gpt2():
   torch = pytest.importorskip('torch')
   transformers = pytest.importorskip('transformers')
   import numpy as np
-  from svdd_tpu.eval.gen_ppl import (PerplexityAggregate,
+  from svdd.eval.gen_ppl import (PerplexityAggregate,
                                      compute_generative_perplexity)
 
   cfg = transformers.GPT2Config(
@@ -179,7 +179,7 @@ def test_generative_perplexity_uniform_model_exact():
   """A uniform-logits LM must give ppl == vocab_size exactly."""
   torch = pytest.importorskip('torch')
   import numpy as np
-  from svdd_tpu.eval.gen_ppl import compute_generative_perplexity
+  from svdd.eval.gen_ppl import compute_generative_perplexity
 
   V = 16
 
@@ -206,7 +206,7 @@ def test_generative_perplexity_local_uniform_exact():
   HF path's semantics: uniform log-probs -> ppl == vocab_size exactly,
   with the same non-EOS + first-EOS token mask."""
   import numpy as np
-  from svdd_tpu.eval.gen_ppl import compute_generative_perplexity_local
+  from svdd.eval.gen_ppl import compute_generative_perplexity_local
 
   V = 16
   uniform = lambda toks: np.full(
@@ -240,8 +240,8 @@ def test_ar_fallback_scorer_smoke():
   """ar_fallback_scorer builds the repo's AR backbone and yields a
   finite perplexity over token samples (the offline gen_ppl path)."""
   import numpy as np
-  from svdd_tpu.config import tiny_test_config
-  from svdd_tpu.eval.gen_ppl import (ar_fallback_scorer,
+  from svdd.config import tiny_test_config
+  from svdd.eval.gen_ppl import (ar_fallback_scorer,
                                      compute_generative_perplexity_local)
 
   cfg = tiny_test_config('rna')

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from svdd_tpu.config import tiny_test_config
+from svdd.config import tiny_test_config
 
 
 def test_selective_scan_matches_sequential():
-  from svdd_tpu.models.dimamba import selective_scan
+  from svdd.models.dimamba import selective_scan
   key = jax.random.key(0)
   b, l, d, n = 2, 6, 4, 3
   ks = jax.random.split(key, 5)
@@ -35,7 +35,7 @@ def test_selective_scan_matches_sequential():
 
 
 def test_dimamba_backbone():
-  from svdd_tpu.diffusion import Diffusion
+  from svdd.diffusion import Diffusion
   cfg = tiny_test_config('rna')
   cfg.backbone = 'dimamba'
   cfg.model.n_layer = 2
@@ -47,7 +47,7 @@ def test_dimamba_backbone():
 
 
 def test_ar_backbone_and_sampler():
-  from svdd_tpu.models.autoregressive import ARModel, ar_sample
+  from svdd.models.autoregressive import ARModel, ar_sample
   cfg = tiny_test_config('rna')
   model = ARModel(config=cfg, vocab_size=5,
                   compute_dtype=jnp.float32)
@@ -63,8 +63,8 @@ def test_ar_backbone_and_sampler():
 
 
 def test_multisep_value_model():
-  from svdd_tpu.models.multisep import MultiSepValueModel
-  from svdd_tpu.models.convgru import ConvGRUValueModel
+  from svdd.models.multisep import MultiSepValueModel
+  from svdd.models.convgru import ConvGRUValueModel
   msm = MultiSepValueModel(ConvGRUValueModel(), n_models=4,
                            num_steps=8)
   dummy = jnp.zeros((1, 12, 4))
@@ -81,8 +81,8 @@ def test_multisep_value_model():
 
 
 def test_ism_and_attributions():
-  from svdd_tpu.analysis import interpret
-  from svdd_tpu import rewards
+  from svdd.analysis import interpret
+  from svdd import rewards
   L = 12
   reward = rewards.synthetic_motif_oracle(L)
   onehot = jax.nn.one_hot(
@@ -101,8 +101,8 @@ def test_ism_and_attributions():
 
 
 def test_evolve_increases_reward():
-  from svdd_tpu.analysis.design import evolve
-  from svdd_tpu import rewards
+  from svdd.analysis.design import evolve
+  from svdd import rewards
   L = 12
   reward = rewards.synthetic_motif_oracle(L)
   # seed one mutation away from the GCGC motif so greedy has a slope
@@ -113,7 +113,7 @@ def test_evolve_increases_reward():
 
 
 def test_format_conversions():
-  from svdd_tpu.analysis import formats
+  from svdd.analysis import formats
   seqs = ['ACGT', 'TTAA']
   idx = formats.convert_input_type(seqs, 'indices')
   np.testing.assert_array_equal(idx, [[0, 1, 2, 3], [3, 3, 0, 0]])
@@ -128,13 +128,13 @@ def test_format_conversions():
 def test_native_kernels_match_python():
   pytest.importorskip('ctypes')
   try:
-    from svdd_tpu.native import bindings
+    from svdd.native import bindings
   except Exception:
     pytest.skip('native toolchain unavailable')
   seqs = ['ACGTACGTAA', 'TTTTGGGGCC']
   toks = bindings.batch_tokenize(seqs)
   assert bindings.batch_detokenize(toks) == seqs
-  from svdd_tpu.eval import metrics
+  from svdd.eval import metrics
   want = {}
   for s in seqs:
     for i in range(len(s) - 2):
@@ -143,7 +143,7 @@ def test_native_kernels_match_python():
 
 
 def test_streaming_pearson_matches_scipy():
-  from svdd_tpu.eval.metrics import PearsonState, R2State
+  from svdd.eval.metrics import PearsonState, R2State
   from scipy.stats import pearsonr
   rng = np.random.default_rng(0)
   y = rng.standard_normal(100)
@@ -160,7 +160,7 @@ def test_streaming_pearson_matches_scipy():
 
 
 def test_quantile_report_and_kmer_pearson():
-  from svdd_tpu.eval.metrics import quantile_report, kmer_pearson
+  from svdd.eval.metrics import quantile_report, kmer_pearson
   rep = quantile_report({'a': np.arange(100.0)})
   assert rep['a']['q50'] == pytest.approx(49.5)
   r = kmer_pearson(['ACGTACGT'] * 4, ['ACGTACGT'] * 3)
@@ -168,7 +168,7 @@ def test_quantile_report_and_kmer_pearson():
 
 
 def test_basenji_trunk():
-  from svdd_tpu.models.basenji import Basenji
+  from svdd.models.basenji import Basenji
   m = Basenji(n_tasks=2, conv_blocks=2, channel_init=16,
               residual_blocks=2, residual_channels=8)
   v = m.init(jax.random.key(0), jnp.zeros((1, 32, 4)))
@@ -177,7 +177,7 @@ def test_basenji_trunk():
 
 
 def test_straight_through_samplers():
-  from svdd_tpu import utils as U
+  from svdd import utils as U
   key = jax.random.key(0)
   probs = jnp.full((4, 8), 0.99)
   b = U.binary_sample_st(key, probs)
@@ -198,8 +198,8 @@ def test_ar_sample_kv_matches_uncached():
   import jax
   import jax.numpy as jnp
   import numpy as np
-  from svdd_tpu.config import tiny_test_config
-  from svdd_tpu.models.autoregressive import (ARModel, ar_sample,
+  from svdd.config import tiny_test_config
+  from svdd.models.autoregressive import (ARModel, ar_sample,
                                               ar_sample_kv)
 
   cfg = tiny_test_config('rna')
@@ -221,7 +221,7 @@ def test_visualize_long_tail_smoke(tmp_path):
   """Every reference plot_* counterpart renders and saves
   (visualize.py:106-772 long-tail; VERDICT r1 item 8)."""
   import numpy as np
-  from svdd_tpu.analysis import visualize as V
+  from svdd.analysis import visualize as V
 
   rng = np.random.default_rng(0)
   vals = rng.normal(size=200)
@@ -263,8 +263,8 @@ def test_attention_scores_extraction():
   import jax
   import jax.numpy as jnp
   import numpy as np
-  from svdd_tpu.models.enformer import EnformerValueModel
-  from svdd_tpu.analysis.interpret import get_attention_scores
+  from svdd.models.enformer import EnformerValueModel
+  from svdd.analysis.interpret import get_attention_scores
 
   vm = EnformerValueModel(n_tasks=1, n_conv=3, channels=256,
                           n_transformers=3, n_heads=2, key_len=8)
@@ -284,7 +284,7 @@ def test_motif_discovery_recovers_planted_motif(tmp_path):
   the MEME/JSON report (score.py run_modisco:249-390 counterpart)."""
   import json
   import numpy as np
-  from svdd_tpu.analysis.interpret import run_modisco
+  from svdd.analysis.interpret import run_modisco
 
   rng = np.random.default_rng(0)
   motif = 'TTAGGC'
@@ -315,7 +315,7 @@ def test_baseline_fold_minimal_waste():
   flagship shape). Pin call count x call size."""
   import jax
   import numpy as np
-  from svdd_tpu import decode
+  from svdd import decode
 
   calls = []
 

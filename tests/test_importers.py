@@ -1,15 +1,15 @@
-"""Numerical parity: reference torch architectures vs svdd_tpu flax
+"""Numerical parity: reference torch architectures vs svdd flax
 models, weights carried by the importers.
 
-This is the golden-value strategy SURVEY.md §4 calls for: the
-reference's CNNModel (loaded directly from /root/reference, which
-depends only on torch) runs under torch-CPU with random weights; the
-importer maps its state dict into our flax CNN; outputs must agree to
-float tolerance. This pins every layout/order/activation decision in
-svdd_tpu.models.cnn to the reference architecture.
+This is the golden-value strategy SURVEY.md §4 calls for: a torch
+mirror of the reference's CNNModel (tests/torch_mirrors.py, with the
+reference's module layout and checkpoint keys) runs under torch-CPU
+with random weights; the importer maps its state dict into our flax
+CNN; outputs must agree to float tolerance. This pins every
+layout/order/activation decision in svdd.models.cnn to the reference
+architecture.
 """
 
-import sys
 import types
 
 import numpy as np
@@ -19,12 +19,8 @@ torch = pytest.importorskip('torch')
 
 
 def _load_reference_dnaconv():
-  sys.path.insert(0, '/root/reference')
-  try:
-    from models import dnaconv  # type: ignore
-    return dnaconv
-  finally:
-    sys.path.pop(0)
+  import torch_mirrors
+  return torch_mirrors
 
 
 def test_cnn_parity_with_reference():
@@ -43,9 +39,9 @@ def test_cnn_parity_with_reference():
   with torch.no_grad():
     t_out = tmodel(torch.tensor(seq), torch.tensor(sigma)).numpy()
 
-  from svdd_tpu.config import tiny_test_config
-  from svdd_tpu.models.cnn import CNNModel
-  from svdd_tpu.importers.cnn import import_cnn_params
+  from svdd.config import tiny_test_config
+  from svdd.models.cnn import CNNModel
+  from svdd.importers.cnn import import_cnn_params
   import jax.numpy as jnp
 
   cfg = tiny_test_config('rna')
@@ -78,9 +74,9 @@ def test_cnn_parity_forward2_onehot():
     t_out = tmodel.forward2(torch.tensor(onehot),
                             torch.tensor(sigma)).numpy()
 
-  from svdd_tpu.config import tiny_test_config
-  from svdd_tpu.models.cnn import CNNModel
-  from svdd_tpu.importers.cnn import import_cnn_params
+  from svdd.config import tiny_test_config
+  from svdd.models.cnn import CNNModel
+  from svdd.importers.cnn import import_cnn_params
   import jax.numpy as jnp
 
   cfg = tiny_test_config('rna')
@@ -102,8 +98,8 @@ def test_convgru_value_model_parity():
   ConvGRUValueModel; outputs must match in eval mode."""
   import jax.numpy as jnp
   import torch_mirrors as tm
-  from svdd_tpu.importers.convgru import import_convgru_value_model
-  from svdd_tpu.models.convgru import ConvGRUValueModel
+  from svdd.importers.convgru import import_convgru_value_model
+  from svdd.models.convgru import ConvGRUValueModel
 
   torch.manual_seed(0)
   mirror = tm.make_rna_value_mirror()
@@ -129,8 +125,8 @@ def test_enformer_value_model_parity():
   flax EnformerValueModel with scan-stacked transformer blocks."""
   import jax.numpy as jnp
   import torch_mirrors as tm
-  from svdd_tpu.importers.enformer import import_enformer_value_model
-  from svdd_tpu.models.enformer import EnformerValueModel
+  from svdd.importers.enformer import import_enformer_value_model
+  from svdd.models.enformer import EnformerValueModel
 
   torch.manual_seed(3)
   n_conv, channels, n_tr, heads, key_len = 3, 384, 2, 2, 8
@@ -161,8 +157,8 @@ def test_timed_enformer_value_model_parity():
   import (TimedEnformerTrunk, Enformer.py:1202-1268)."""
   import jax.numpy as jnp
   import torch_mirrors as tm
-  from svdd_tpu.importers.enformer import import_enformer_value_model
-  from svdd_tpu.models.enformer import EnformerValueModel
+  from svdd.importers.enformer import import_enformer_value_model
+  from svdd.models.enformer import EnformerValueModel
 
   torch.manual_seed(6)
   n_conv, channels, n_tr, heads, key_len = 3, 384, 1, 2, 8
@@ -197,9 +193,9 @@ def test_dit_parity_with_mirror():
   flax DIT in fp32."""
   import jax.numpy as jnp
   import torch_mirrors as tm
-  from svdd_tpu.config import tiny_test_config
-  from svdd_tpu.importers.dit import import_dit_params
-  from svdd_tpu.models.dit import DIT
+  from svdd.config import tiny_test_config
+  from svdd.importers.dit import import_dit_params
+  from svdd.models.dit import DIT
 
   torch.manual_seed(9)
   hidden, cond, heads, blocks, vocab = 32, 24, 2, 2, 5
@@ -243,8 +239,8 @@ def test_gru_parity_with_torch():
   directions as GRUBlock does at Enformer.py:1620)."""
   import jax
   import jax.numpy as jnp
-  from svdd_tpu.models.convgru import GRUCellScan
-  from svdd_tpu.importers.convgru import import_gru_cell
+  from svdd.models.convgru import GRUCellScan
+  from svdd.importers.convgru import import_gru_cell
 
   torch.manual_seed(0)
   H, IN, B, L = 6, 5, 2, 7

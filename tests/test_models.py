@@ -4,11 +4,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from svdd_tpu.config import tiny_test_config
-from svdd_tpu.models import ema
-from svdd_tpu.models.cnn import CNNModel
-from svdd_tpu.models.convgru import ConvGRUValueModel, GRUCellScan
-from svdd_tpu.models.enformer import (EnformerValueModel,
+from svdd.config import tiny_test_config
+from svdd.models import ema
+from svdd.models.cnn import CNNModel
+from svdd.models.convgru import ConvGRUValueModel, GRUCellScan
+from svdd.models.enformer import (EnformerValueModel,
                                       exponential_linspace_int,
                                       relative_shift)
 
@@ -113,7 +113,7 @@ def test_fast_layer_norm_matches_flax():
   (flax op order preserved); close on bf16 (the bf16 apply is the
   whole point — see models/blocks.py docstring)."""
   import flax.linen as nn
-  from svdd_tpu.models.blocks import FastLayerNorm
+  from svdd.models.blocks import FastLayerNorm
 
   x = jax.random.normal(jax.random.key(3), (4, 6, 256), jnp.float32)
   ref = nn.LayerNorm(epsilon=1e-5)

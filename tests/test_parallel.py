@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from svdd_tpu.config import tiny_test_config
-from svdd_tpu.diffusion import Diffusion
-from svdd_tpu.parallel import mesh as M
-from svdd_tpu.train import diffusion as train_diff
+from svdd.config import tiny_test_config
+from svdd.diffusion import Diffusion
+from svdd.parallel import mesh as M
+from svdd.train import diffusion as train_diff
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason='needs 8 virtual devices')
@@ -105,7 +105,7 @@ def test_fsdp_actually_shards():
 
 
 def test_guided_decode_under_mesh():
-  from svdd_tpu import mdlm, rewards
+  from svdd import mdlm, rewards
   cfg = tiny_test_config('rna')
   model = Diffusion(cfg, rng=jax.random.key(0))
   reward = rewards.synthetic_motif_oracle(cfg.model.length)
@@ -120,8 +120,8 @@ def test_guided_decode_under_mesh():
 
 
 def _tiny_enformer_value(length=24):
-  from svdd_tpu import mdlm
-  from svdd_tpu.models.enformer import EnformerValueModel
+  from svdd import mdlm
+  from svdd.models.enformer import EnformerValueModel
   vm = EnformerValueModel(n_tasks=1, n_conv=3, channels=256,
                           n_transformers=2, n_heads=2, key_len=8)
   vv = jax.jit(vm.init)(jax.random.key(5),
@@ -212,7 +212,7 @@ def test_candidate_sharded_pm_decode_matches_unsharded():
   """SVDD-PM under the mesh: the carried winner log_p gather (the
   reuse_posterior path) must compile with candidate sharding and
   reproduce single-device tokens exactly."""
-  from svdd_tpu.models.enformer import EnformerValueModel
+  from svdd.models.enformer import EnformerValueModel
   cfg = tiny_test_config('dna')
   model = Diffusion(cfg, rng=jax.random.key(0))
   vm = EnformerValueModel(n_tasks=1, n_conv=3, channels=256,
@@ -246,8 +246,8 @@ def test_sequence_parallel_attention_matches_local():
   equal single-device attention, causal and non-causal."""
   import jax.numpy as jnp
   import numpy as np
-  from svdd_tpu.ops.attention import mha, sp_mha
-  from svdd_tpu.parallel import mesh as M
+  from svdd.ops.attention import mha, sp_mha
+  from svdd.parallel import mesh as M
 
   mesh = M.make_mesh(data=2, model=4)
   B, L, H, D = 2, 32, 2, 8
@@ -267,7 +267,7 @@ def test_gpipe_matches_sequential_forward_and_grad():
   forward AND backward (the ppermute transpose drives the backward
   schedule), incl. per-sample conditioning as a microbatched arg."""
   from jax.sharding import Mesh
-  from svdd_tpu.parallel.pipeline import gpipe, stack_stage_params
+  from svdd.parallel.pipeline import gpipe, stack_stage_params
 
   mesh = Mesh(np.asarray(jax.devices()).reshape(8), ('pipe',))
   key = jax.random.key(0)
@@ -326,8 +326,8 @@ def test_gpipe_dit_blocks():
   """Pipeline real DDiTBlocks (adaLN cond + rotary tables as broadcast
   args) across 8 stages; must equal the sequential block stack."""
   from jax.sharding import Mesh
-  from svdd_tpu.models.dit import DDiTBlock, rotary_cos_sin
-  from svdd_tpu.parallel.pipeline import gpipe, stack_stage_params
+  from svdd.models.dit import DDiTBlock, rotary_cos_sin
+  from svdd.parallel.pipeline import gpipe, stack_stage_params
 
   mesh = Mesh(np.asarray(jax.devices()).reshape(8), ('pipe',))
   n_blocks, dim, heads, b, l = 8, 32, 2, 8, 12
@@ -368,9 +368,9 @@ def test_gpipe_dit_blocks():
 def test_pipeline_dit_forward_matches_apply():
   """pipeline_dit_forward over the 8-stage pipe mesh == dit.apply."""
   from jax.sharding import Mesh
-  from svdd_tpu.config import tiny_test_config
-  from svdd_tpu.models.dit import DIT
-  from svdd_tpu.parallel.pipeline import pipeline_dit_forward
+  from svdd.config import tiny_test_config
+  from svdd.models.dit import DIT
+  from svdd.parallel.pipeline import pipeline_dit_forward
 
   cfg = tiny_test_config('rna')
   cfg.model.n_blocks = 8
@@ -402,7 +402,7 @@ def test_gpipe_microbatch_edge_counts(num_mb):
   """Schedule correctness when microbatches < stages (deep bubbles),
   == stages, and > stages."""
   from jax.sharding import Mesh
-  from svdd_tpu.parallel.pipeline import gpipe, stack_stage_params
+  from svdd.parallel.pipeline import gpipe, stack_stage_params
 
   mesh = Mesh(np.asarray(jax.devices()).reshape(8), ('pipe',))
   d, b = 8, 24
@@ -430,7 +430,7 @@ def test_gpipe_interleaved_matches_sequential():
   """Interleaved virtual-stage schedule (V chunks/device, ring
   traversed V times) == sequential forward, and grads match
   (beyond-reference; Megatron-style low-latency schedule)."""
-  from svdd_tpu.parallel.pipeline import (gpipe_interleaved,
+  from svdd.parallel.pipeline import (gpipe_interleaved,
                                           stack_stage_params_interleaved)
   from jax.sharding import Mesh
 
@@ -544,7 +544,7 @@ def test_tds_sharded_decode_matches_unsharded():
   under a 'data'-sharded B that is a cross-shard gather, exactly the
   op that can silently degrade under pjit. Pin numerics vs
   single-device."""
-  from svdd_tpu import rewards
+  from svdd import rewards
   cfg = tiny_test_config('dna')
   model = Diffusion(cfg, rng=jax.random.key(0))
   reward = rewards.synthetic_motif_oracle(cfg.model.length)
@@ -569,7 +569,7 @@ def test_scheduled_m_sharded_decode_matches_unsharded():
   """Scheduled-M SVDD-MC under the candidate-sharded mesh: each phase
   folds a DIFFERENT (B*M_i, L) candidate batch onto the mesh — the
   per-phase shard constraint must reproduce single-device tokens."""
-  from svdd_tpu import mdlm, rewards
+  from svdd import mdlm, rewards
   cfg = tiny_test_config('dna')
   model = Diffusion(cfg, rng=jax.random.key(0))
   reward = rewards.synthetic_motif_oracle(cfg.model.length)
@@ -590,7 +590,7 @@ def test_scheduled_m_sharded_decode_matches_unsharded():
 def test_dps_sharded_decode_matches_unsharded():
   """DPS under a data-sharded batch: the in-scan jax.grad through
   denoiser + reward must reproduce single-device tokens."""
-  from svdd_tpu import rewards
+  from svdd import rewards
   cfg = tiny_test_config('dna')
   model = Diffusion(cfg, rng=jax.random.key(0))
   reward = rewards.synthetic_motif_oracle(cfg.model.length)
@@ -609,7 +609,7 @@ def test_dps_sharded_decode_matches_unsharded():
 def test_classifier_sharded_decode_matches_unsharded():
   """Classifier guidance under a data-sharded batch: grads flow through
   the value net only; tokens must match single-device."""
-  from svdd_tpu import rewards
+  from svdd import rewards
   cfg = tiny_test_config('dna')
   model = Diffusion(cfg, rng=jax.random.key(0))
   reward = rewards.synthetic_motif_oracle(cfg.model.length)
@@ -631,8 +631,8 @@ def test_classifier_sharded_decode_matches_unsharded():
 
 
 def _value_training_setup(batch_size=8):
-  from svdd_tpu import rewards, value as value_lib
-  from svdd_tpu.train import value as train_val
+  from svdd import rewards, value as value_lib
+  from svdd.train import value as train_val
   cfg = tiny_test_config('rna')
   model = Diffusion(cfg, rng=jax.random.key(0))
   reward_fn = rewards.synthetic_motif_oracle(cfg.model.length)
@@ -648,7 +648,7 @@ def test_value_dp_grads_match_single_device():
   fixed regression batch, rows sharded over 'data' (pjit psums the
   grads) vs unsharded — grad trees agree to float-reduction noise."""
   from jax.sharding import NamedSharding, PartitionSpec as P
-  from svdd_tpu import value as value_lib
+  from svdd import value as value_lib
   model, vf, reward_fn, _ = _value_training_setup()
   res = model.sampler(8, collect_mid=True)(jax.random.key(9))
   batch = value_lib.mc_targets(res.samples, res.mid_x, reward_fn)
@@ -681,7 +681,7 @@ def test_value_dp_train_matches_single_device():
   across two iterations. (Param trees agree except where Adam
   amplifies float-reduction sign flips on ~zero grads — the grad-level
   parity above is the exact check.)"""
-  from svdd_tpu.train import value as train_val
+  from svdd.train import value as train_val
   model, vf, reward_fn, tcfg = _value_training_setup()
 
   t_single = train_val.ValueTrainer(model, vf, reward_fn, tcfg)
@@ -705,7 +705,7 @@ def test_value_dp_train_matches_single_device():
 def test_value_fsdp_actually_shards_and_runs():
   """--fsdp: value-net params + optimizer state shard over 'data'
   (ZeRO-style; beyond the reference) and the step still trains."""
-  from svdd_tpu.train import value as train_val
+  from svdd.train import value as train_val
   model, vf, reward_fn, tcfg = _value_training_setup()
   mesh = M.make_mesh()
   tr = train_val.ValueTrainer(model, vf, reward_fn, tcfg, mesh=mesh,
@@ -721,7 +721,7 @@ def test_value_fsdp_actually_shards_and_runs():
 
 def test_value_cdq_dp_train_matches_single_device():
   """CD-Q targets under DP: candidate rollouts shard over 'data' too."""
-  from svdd_tpu.train import value as train_val
+  from svdd.train import value as train_val
   model, vf, reward_fn, _ = _value_training_setup()
   tcfg = train_val.ValueTrainerConfig(batch_size=8, cdq=True)
 
@@ -741,10 +741,10 @@ def test_value_cdq_dp_train_matches_single_device():
 def test_multisep_dp_train_matches_single_device():
   """MultiSep (time-binned trunks) under the DP mesh: per-bin losses
   and the mean loss match single-device."""
-  from svdd_tpu.models.convgru import ConvGRUValueModel
-  from svdd_tpu.models.multisep import MultiSepValueModel
-  from svdd_tpu import rewards
-  from svdd_tpu.train import value as train_val
+  from svdd.models.convgru import ConvGRUValueModel
+  from svdd.models.multisep import MultiSepValueModel
+  from svdd import rewards
+  from svdd.train import value as train_val
   cfg = tiny_test_config('rna')
   model = Diffusion(cfg, rng=jax.random.key(0))
   reward_fn = rewards.synthetic_motif_oracle(cfg.model.length)

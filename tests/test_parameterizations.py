@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from svdd_tpu.config import tiny_test_config
-from svdd_tpu.diffusion import Diffusion
+from svdd.config import tiny_test_config
+from svdd.diffusion import Diffusion
 
 
 def test_sedd_parameterization_end_to_end():
@@ -50,7 +50,7 @@ def test_timed_guided_decode():
   """Step-indexed SVDD-MC: the value fn receives the diffusion step."""
   cfg = tiny_test_config('rna')
   model = Diffusion(cfg, rng=jax.random.key(0))
-  from svdd_tpu import rewards, mdlm
+  from svdd import rewards, mdlm
   reward = rewards.synthetic_motif_oracle(cfg.model.length)
   seen_steps = []
 
@@ -65,9 +65,9 @@ def test_timed_guided_decode():
 
 
 def test_multisep_guided_decode():
-  from svdd_tpu.models.multisep import MultiSepValueModel
-  from svdd_tpu.models.convgru import ConvGRUValueModel
-  from svdd_tpu import mdlm
+  from svdd.models.multisep import MultiSepValueModel
+  from svdd.models.convgru import ConvGRUValueModel
+  from svdd import mdlm
   cfg = tiny_test_config('rna')
   model = Diffusion(cfg, rng=jax.random.key(0))
   msm = MultiSepValueModel(ConvGRUValueModel(), n_models=2,
@@ -86,7 +86,7 @@ def test_multisep_guided_decode():
 
 
 def test_cnn_classifier_and_cls_guidance():
-  from svdd_tpu.models.cnn import CNNModel
+  from svdd.models.cnn import CNNModel
   cfg = tiny_test_config('rna')
   clf = CNNModel(config=cfg, alphabet_size=5, num_cls=3,
                  classifier=True)
@@ -107,7 +107,7 @@ def test_cnn_classifier_and_cls_guidance():
 
 
 def test_saluki_transform_shape():
-  from svdd_tpu import mdlm
+  from svdd import mdlm
   s = jnp.array([[0, 1, 4, 3]])
   out = mdlm.transform_samples_saluki(s, final_length=32)
   assert out.shape == (1, 32, 6)
@@ -123,7 +123,7 @@ def test_saluki_tweedie_decode():
   """rna_saluki SVDD-PM: reward scored through the 12288-length
   6-channel saluki input (tiny final_length here)."""
   import jax.numpy as jnp
-  from svdd_tpu import mdlm
+  from svdd import mdlm
   cfg = tiny_test_config('rna')
   cfg.task = 'rna_saluki'
   model = Diffusion(cfg, rng=jax.random.key(0))

@@ -6,7 +6,7 @@ Two layers:
    mid scale (B=64, steps=32, M=4; far bigger than test_sampler's
    toys) with a deterministic differentiable oracle standing in for
    both reward and value net, and asserts the reference's core
-   quality claim (BASELINE.md table; /root/reference/log/*.npz):
+   quality claim (BASELINE.md table; reference log/*.npz):
 
        baseline q50  <  best-of-N q50  and
        baseline q50  <  SVDD-MC q50   and
@@ -18,7 +18,7 @@ Two layers:
 
 2. ``test_demo_artifact_ordering`` — pins the ordering on the
    committed hardware-run demo artifacts (log/demo-rna-MRL*.npz from
-   scripts/demo_rna_pipeline.py, trained tiny nets on the TPU), the
+   scripts/demo_rna_pipeline.py, trained tiny nets), the
    shape-faithful analogue of the reference's published quantiles.
 """
 
@@ -37,10 +37,10 @@ def _q50(x) -> float:
 def test_guided_ordering_midscale():
   import jax
 
-  from svdd_tpu import mdlm, rewards
-  from svdd_tpu.config import tiny_test_config
-  from svdd_tpu.decode import run_decode
-  from svdd_tpu.diffusion import Diffusion
+  from svdd import mdlm, rewards
+  from svdd.config import tiny_test_config
+  from svdd.decode import run_decode
+  from svdd.diffusion import Diffusion
 
   cfg = tiny_test_config('rna')
   cfg.sampling.steps = 32
@@ -84,7 +84,7 @@ def test_demo_artifact_ordering():
   through a 30% degradation) — the committed RNA run measured
   baseline q50 0.01 / MC 6.84 / PM 9.51, so a refreshed artifact with
   less than half that lift fails here. Regenerate with
-  scripts/demo_rna_pipeline.py on the TPU."""
+  scripts/demo_rna_pipeline.py."""
   mc_path = os.path.join(REPO, 'log', 'demo-rna-MRL.npz')
   pm_path = os.path.join(REPO, 'log', 'demo-rna-MRL_tw.npz')
   if not (os.path.exists(mc_path) and os.path.exists(pm_path)):
@@ -109,7 +109,7 @@ def test_demo_artifact_ordering_dna():
   3 runs cuts the mean's noise to ~±8%). Bands = pooled mean
   -30%/+40%, so a 30% lift regression FAILS while honest spread
   passes. Regenerate with scripts/demo_dna_pipeline.py
-  [--suffix .runN --seed_offset 100*N] on the TPU."""
+  [--suffix .runN --seed_offset 100*N]."""
   runs = []
   for suffix in ('', '.run2', '.run3'):
     mc_path = os.path.join(REPO, 'log', f'demo-dna-HepG2{suffix}.npz')

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from svdd_tpu import rewards
-from svdd_tpu.config import tiny_test_config
-from svdd_tpu.diffusion import Diffusion
+from svdd import rewards
+from svdd.config import tiny_test_config
+from svdd.diffusion import Diffusion
 
 B = 8
 M = 4
@@ -31,7 +31,7 @@ def reward_fn(model):
 
 
 def _token_reward_fn(reward_fn):
-  from svdd_tpu import mdlm
+  from svdd import mdlm
   return lambda tokens: reward_fn(mdlm.transform_samples(tokens))
 
 
@@ -140,7 +140,7 @@ def test_svdd_mc_m_schedule_two_phase_lifts(model, reward_fn):
   x = np.asarray(res.samples)
   assert (x >= 0).all() and (x < 4).all()
   base = np.asarray(model.sampler(B)(jax.random.key(41)).samples)
-  from svdd_tpu import mdlm
+  from svdd import mdlm
   r_guided = np.asarray(reward_fn(mdlm.transform_samples(
       jnp.asarray(x))))
   r_base = np.asarray(reward_fn(mdlm.transform_samples(

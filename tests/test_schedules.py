@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from svdd_tpu import schedules
+from svdd import schedules
 
 
 def test_loglinear_closed_form():
@@ -58,20 +58,14 @@ def test_importance_transform_endpoints():
 
 
 def test_all_schedules_match_reference_module():
-  """Pin every schedule against the REFERENCE'S OWN noise_schedule.py
-  (torch-only, imported directly from /root/reference): total_noise
-  and rate_noise agree on a t grid for all five schedule types."""
-  import sys
+  """Pin every schedule against a torch mirror of the reference's
+  noise_schedule.py (tests/torch_mirrors.py): total_noise and
+  rate_noise agree on a t grid for all five schedule types."""
   import numpy as np
   import pytest
   torch = pytest.importorskip('torch')
-  sys.path.insert(0, '/root/reference')
-  try:
-    import noise_schedule as ref_ns
-  finally:
-    sys.path.pop(0)
-  import types
-  from svdd_tpu import schedules
+  import torch_mirrors as ref_ns
+  from svdd import schedules
 
   t = np.linspace(0.01, 0.99, 23).astype(np.float32)
   t_t = torch.tensor(t)

@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from svdd_tpu.config import tiny_test_config
+from svdd.config import tiny_test_config
 
 
 def test_char_tokenizer_roundtrip():
-  from svdd_tpu.data.text import CharTokenizer
+  from svdd.data.text import CharTokenizer
   tok = CharTokenizer()
   ids = tok.encode('hello world')
   assert tok.decode(ids) == 'hello world'
@@ -19,8 +19,8 @@ def test_char_tokenizer_roundtrip():
 
 def test_text_mdlm_pipeline():
   """Text task end-to-end: char vocab, loss step, sample."""
-  from svdd_tpu.data.text import get_text_dataloaders, CharTokenizer
-  from svdd_tpu.diffusion import Diffusion
+  from svdd.data.text import get_text_dataloaders, CharTokenizer
+  from svdd.diffusion import Diffusion
   cfg = tiny_test_config('rna')
   cfg.task = 'text'
   cfg.alphabet_size = CharTokenizer().vocab_size
@@ -39,8 +39,8 @@ def test_text_mdlm_pipeline():
 
 
 def test_semi_ar_sample():
-  from svdd_tpu.sampling.semi_ar import semi_ar_sample
-  from svdd_tpu.diffusion import Diffusion
+  from svdd.sampling.semi_ar import semi_ar_sample
+  from svdd.diffusion import Diffusion
   cfg = tiny_test_config('rna')
   cfg.sampling.predictor = 'ddpm_cache'
   model = Diffusion(cfg, rng=jax.random.key(0))
@@ -55,7 +55,7 @@ def test_semi_ar_sample():
 
 
 def test_regression_dataset_and_tokenizer(tmp_path):
-  from svdd_tpu.data.regression import (DNARegressionDataset,
+  from svdd.data.regression import (DNARegressionDataset,
                                         SimpleDNATokenizer)
   tok = SimpleDNATokenizer(max_length=8)
   ids = tok.encode('ACGT')
@@ -77,7 +77,7 @@ def test_regression_dataset_and_tokenizer(tmp_path):
 
 
 def test_metrics_logger_and_timer(tmp_path):
-  from svdd_tpu.observability import MetricsLogger, StepTimer, nan_guard
+  from svdd.observability import MetricsLogger, StepTimer, nan_guard
   import json
   logger = MetricsLogger(str(tmp_path), 'test')
   logger.log({'loss': jnp.asarray(1.5)}, step=3)
@@ -100,7 +100,7 @@ def test_group_and_wrap_blocks():
   """_group_texts parity (dataloader.py:277-301): concat docs, pack
   into [BOS] inner [EOS] blocks, drop the tail remainder."""
   import numpy as np
-  from svdd_tpu.data.text import group_and_wrap
+  from svdd.data.text import group_and_wrap
 
   docs = [[10, 11, 12, 99], [13, 14, 99], [15, 16, 17, 18, 99]]
   out = group_and_wrap(docs, block_size=6, bos=1, eos=2)
@@ -143,7 +143,7 @@ def test_detokenizers_match_reference():
   lpt = stub('lightning.pytorch')
   lpt.utilities = lutil
   stub('lightning').pytorch = lpt
-  sys.path.insert(0, '/root/reference')
+  sys.path.insert(0, os.environ.get('SVDD_REFERENCE_DIR', ''))
   try:
     import dataloader as ref  # type: ignore
   except Exception:
@@ -151,7 +151,7 @@ def test_detokenizers_match_reference():
     pytest.skip('reference dataloader not importable here')
   finally:
     sys.path.pop(0)
-  from svdd_tpu.data import text as T
+  from svdd.data import text as T
 
   samples = [
       "the cat 's house ( with  spaces ) and a \" quoted  bit \" , "

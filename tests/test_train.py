@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from svdd_tpu import rewards, value as value_lib
-from svdd_tpu.config import tiny_test_config
-from svdd_tpu.data.gosai import FaultTolerantIterator, GosaiDataset
-from svdd_tpu.diffusion import Diffusion
-from svdd_tpu.train import diffusion as train_diff
-from svdd_tpu.train import value as train_val
+from svdd import rewards, value as value_lib
+from svdd.config import tiny_test_config
+from svdd.data.gosai import FaultTolerantIterator, GosaiDataset
+from svdd.diffusion import Diffusion
+from svdd.train import diffusion as train_diff
+from svdd.train import value as train_val
 
 
 @pytest.fixture(scope='module')
@@ -119,8 +119,8 @@ def test_cdq_training_runs(cfg):
 
 
 def test_multisep_training_converges(cfg):
-  from svdd_tpu.models.multisep import MultiSepValueModel
-  from svdd_tpu.models.convgru import ConvGRUValueModel
+  from svdd.models.multisep import MultiSepValueModel
+  from svdd.models.convgru import ConvGRUValueModel
   model = Diffusion(cfg, rng=jax.random.key(0))
   msm = MultiSepValueModel(ConvGRUValueModel(), n_models=2,
                            num_steps=cfg.sampling.steps)
@@ -142,9 +142,9 @@ def test_fit_logs_metrics_and_sample_quality(cfg, tmp_path):
   (VERDICT r1 items 2+5: the reference computes these every validation
   epoch, diffusion_gosai.py:451-565)."""
   import json
-  from svdd_tpu import rewards
-  from svdd_tpu.eval import validation
-  from svdd_tpu.observability import MetricsLogger
+  from svdd import rewards
+  from svdd.eval import validation
+  from svdd.observability import MetricsLogger
 
   model = Diffusion(cfg, rng=jax.random.key(0))
   ds = GosaiDataset('train', length=cfg.model.length)
@@ -259,7 +259,7 @@ def test_iterator_sharding_disjoint():
 def test_timed_value_training(cfg):
   """TimedEnformer-style value training: per-state step indices flow
   through mc_targets into the timed module."""
-  from svdd_tpu.models.convgru import ConvGRUValueModel
+  from svdd.models.convgru import ConvGRUValueModel
   import flax.linen as nn
 
   class TimedToy(nn.Module):
@@ -304,11 +304,11 @@ def test_native_sharded_csv_reader(tmp_path):
     for i in range(N):
       w.writerow([i, seqs[i], *[f'{v:.6f}' for v in vals[i]]])
 
-  from svdd_tpu.native import bindings
+  from svdd.native import bindings
   toks, clss = bindings.csv_read_gosai(
       str(path), 'seq', ['hepg2', 'k562', 'sknsh'], L)
   assert toks.shape == (N, L) and clss.shape == (N, 3)
-  from svdd_tpu.data.gosai import dna_tokenize_batch
+  from svdd.data.gosai import dna_tokenize_batch
   np.testing.assert_array_equal(toks, dna_tokenize_batch(seqs))
   np.testing.assert_allclose(clss, vals, atol=1e-5)
   assert bindings.csv_count_rows(str(path)) == N
@@ -330,7 +330,7 @@ def test_native_csv_empty_fields_and_shard_bounds(tmp_path):
   (2) shards are bounded by RAW lines consumed, so a shard containing
   a malformed row yields fewer rows instead of stealing rows from the
   next host's shard."""
-  from svdd_tpu.native import bindings
+  from svdd.native import bindings
   L = 8
   path = tmp_path / 'gosai_train.csv'
   rows = [
@@ -378,7 +378,7 @@ def test_dataset_row_sharding(tmp_path, cfg):
       w.writerow([''.join(alpha[rng.integers(0, 4, L)]),
                   float(i), 0.0, 0.0])
 
-  from svdd_tpu.data.gosai import GosaiDataset
+  from svdd.data.gosai import GosaiDataset
   half0 = GosaiDataset('train', length=L, data_dir=str(tmp_path),
                        row_offset=0, row_limit=16)
   half1 = GosaiDataset('train', length=L, data_dir=str(tmp_path),
@@ -387,7 +387,7 @@ def test_dataset_row_sharding(tmp_path, cfg):
   assert set(half0.clss[:, 0]) == set(range(16))
   assert set(half1.clss[:, 0]) == set(range(16, 32))
 
-  from svdd_tpu.data import gosai as G
+  from svdd.data import gosai as G
   cfg.loader.global_batch_size = 8
   cfg.loader.eval_global_batch_size = 8
   it0, _, _ = G.get_dataloaders(cfg, num_shards=2, shard_index=0,
@@ -406,7 +406,7 @@ def test_grad_accumulation_matches_manual_average(cfg):
   of the two microbatch grads (same key-splitting discipline)."""
   import copy
   import optax
-  from svdd_tpu.models import ema as ema_lib
+  from svdd.models import ema as ema_lib
 
   c2 = copy.deepcopy(cfg)
   c2.training.accum_steps = 2
@@ -483,8 +483,8 @@ def test_value_trainer_state_roundtrip(cfg, tmp_path):
 
 
 def test_multisep_state_roundtrip(cfg, tmp_path):
-  from svdd_tpu.models.multisep import MultiSepValueModel
-  from svdd_tpu.value import build_value_module
+  from svdd.models.multisep import MultiSepValueModel
+  from svdd.value import build_value_module
   model = Diffusion(cfg, rng=jax.random.key(0))
   module = build_value_module('rna', 'enformer', n_tasks=1)
   msm = MultiSepValueModel(module, n_models=4,
@@ -508,7 +508,7 @@ def test_value_bf16_env_knob(monkeypatch):
   """SVDD_VALUE_BF16=1 switches the Enformer value net to bf16 compute
   (value.build_value_module); params stay f32 and scores track the f32
   module. Explicit compute_dtype kwargs win over the env."""
-  from svdd_tpu.value import build_value_module
+  from svdd.value import build_value_module
   tiny = dict(n_conv=3, channels=256, n_transformers=1, n_heads=2,
               key_len=8)
 

@@ -16,15 +16,15 @@ their documented semantics —
   gumbel-trick categorical        diffusion_gosai.py:28-34
   loglinear noise schedule        noise_schedule.py:126-152
 
-The backbone itself is NOT mirrored: tests import the actual
-``models/dnaconv.py`` from /root/reference (torch-only dependency) so
-the denoiser weights can be carried into svdd_tpu through
+The backbone is a reference-layout torch mirror of
+``models/dnaconv.py`` (tests/torch_mirrors.CNNModel) so the denoiser
+weights can be carried into svdd through
 importers.cnn and the two frameworks decode the *same model*. The
 heavy Lightning module around these loops is unimportable here (no
 lightning/hydra in this image), so the loop math lives in this file —
 written fresh against the line-cited semantics, structured like the
 reference (python loop over steps, sequential loop over the M
-candidates) rather than like svdd_tpu's vectorized lax.scan.
+candidates) rather than like svdd's vectorized lax.scan.
 """
 
 from __future__ import annotations
@@ -200,7 +200,7 @@ def decode(denoiser: TorchDenoiser, algo: str, batch_size: int,
   x = torch.full((batch_size, length), MASK, dtype=torch.long)
   timesteps = np.linspace(1.0, eps, num_steps + 1)
   # scheduled-M: expand [(n_steps, M), ...] to a per-step M list
-  # (mirrors svdd_tpu's phased reverse_process)
+  # (mirrors svdd's phased reverse_process)
   if m_schedule is not None:
     per_step_m = [m for n, m in m_schedule for _ in range(n)]
     assert len(per_step_m) == num_steps

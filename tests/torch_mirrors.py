@@ -1,22 +1,25 @@
-"""Hand-built torch mirrors of the reference value-net architectures.
+"""Hand-built torch mirrors of the reference architectures: the value
+nets and the CNN denoiser.
 
 The reference's Enformer.py cannot be imported stand-alone (it pulls in
 enformer_pytorch, grelu, hydra and lightning at module level,
 Enformer.py:8-19), so full-model importer parity tests need local torch
 replicas. Every module here reproduces the corresponding reference
 module's *state-dict key layout* exactly (same attribute names, same
-nested-module structure) so that the importers in ``svdd_tpu.importers``
+nested-module structure) so that the importers in ``svdd.importers``
 are exercised against the same key schema a real reference checkpoint
 has (saved by trainer.py:73-96 as ``embedding.*`` / ``head.*``).
 
 Behavior citations:
-  grelu-style blocks   /root/reference/Enformer.py:2010-2660
-  ConvTower/GRUBlock   /root/reference/Enformer.py:1571-1751
-  ConvGRUTrunk         /root/reference/Enformer.py:1337-1426
-  EnformerConvTower    /root/reference/Enformer.py:1807-1884
-  Transformer tower    /root/reference/Enformer.py:1887-2007
-  EnformerTrunk        /root/reference/Enformer.py:1271-1334
-  TimedEnformerTrunk   /root/reference/Enformer.py:1202-1268
+  grelu-style blocks   reference Enformer.py:2010-2660
+  ConvTower/GRUBlock   reference Enformer.py:1571-1751
+  ConvGRUTrunk         reference Enformer.py:1337-1426
+  EnformerConvTower    reference Enformer.py:1807-1884
+  Transformer tower    reference Enformer.py:1887-2007
+  EnformerTrunk        reference Enformer.py:1271-1334
+  TimedEnformerTrunk   reference Enformer.py:1202-1268
+  CNNModel             reference models/dnaconv.py:8-21, 135-247
+  noise schedules      reference noise_schedule.py:60-152
   Attention/AttentionPool/relative_shift/positional features follow the
   published enformer-pytorch model (imported at Enformer.py:8-9),
   re-derived here from its documented math.
@@ -812,3 +815,169 @@ class DIT(nn.Module):
     for block in self.blocks:
       x = block(x, rot, c)
     return self.output_layer(x, c)
+
+
+# ---------------------------------------------------------------------------
+# CNN denoiser mirror (reference models/dnaconv.py). Attribute names
+# follow the reference module so its state dict has the checkpoint key
+# layout importers.cnn reads: linear.*, time_embedder.{0.W,1.*},
+# convs.{i}.*, time_layers.{i}.dense.*, norms.{i}.*, final_conv.{0,2}.*
+# ---------------------------------------------------------------------------
+
+
+class GaussianFourierProjection(nn.Module):
+  """Frozen random time features (dnaconv.py:8-21)."""
+
+  def __init__(self, embed_dim: int, scale: float = 30.0):
+    super().__init__()
+    self.W = nn.Parameter(torch.randn(embed_dim // 2) * scale,
+                          requires_grad=False)
+
+  def forward(self, x):
+    x_proj = x[:, None] * self.W[None, :] * 2 * math.pi
+    return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], dim=-1)
+
+
+class Dense(nn.Module):
+  """Linear wrapper whose output broadcasts over length (dnaconv.py)."""
+
+  def __init__(self, input_dim: int, output_dim: int):
+    super().__init__()
+    self.dense = nn.Linear(input_dim, output_dim)
+
+  def forward(self, x):
+    return self.dense(x)
+
+
+class CNNModel(nn.Module):
+  """Dilated-conv MDLM denoiser (dnaconv.py:135-247): one-hot stem conv
+  k=9, then 5 * num_cnn_stacks layers of
+  ``feat = relu(conv(LayerNorm(dropout(feat) + time_bias))) + feat``
+  with dilations [1, 1, 4, 16, 64] each repeated num_cnn_stacks times
+  consecutively, then a 1x1 -> relu -> 1x1 head. ``forward`` takes
+  tokens, ``forward2`` a (B, L, V) one-hot (the DPS gradient path).
+  Channel-first (B, C, L) internally, like the reference."""
+
+  def __init__(self, args, alphabet_size: int = 5, num_cls: int = 3,
+               classifier: bool = False):
+    super().__init__()
+    self.alphabet_size = alphabet_size
+    self.args = args
+    self.classifier = classifier
+    hidden = args.hidden_dim
+    self.linear = nn.Conv1d(alphabet_size, hidden, kernel_size=9,
+                            padding=4)
+    self.time_embedder = nn.Sequential(
+        GaussianFourierProjection(embed_dim=hidden),
+        nn.Linear(hidden, hidden))
+    base = [nn.Conv1d(hidden, hidden, kernel_size=9, padding=4),
+            nn.Conv1d(hidden, hidden, kernel_size=9, padding=4),
+            nn.Conv1d(hidden, hidden, kernel_size=9, dilation=4,
+                      padding=16),
+            nn.Conv1d(hidden, hidden, kernel_size=9, dilation=16,
+                      padding=64),
+            nn.Conv1d(hidden, hidden, kernel_size=9, dilation=64,
+                      padding=256)]
+    import copy
+    self.convs = nn.ModuleList([copy.deepcopy(layer) for layer in base
+                                for _ in range(args.num_cnn_stacks)])
+    self.num_layers = 5 * args.num_cnn_stacks
+    self.time_layers = nn.ModuleList(
+        [Dense(hidden, hidden) for _ in range(self.num_layers)])
+    self.norms = nn.ModuleList(
+        [nn.LayerNorm(hidden) for _ in range(self.num_layers)])
+    self.final_conv = nn.Sequential(
+        nn.Conv1d(hidden, hidden, kernel_size=1), nn.ReLU(),
+        nn.Conv1d(hidden, hidden if classifier else alphabet_size,
+                  kernel_size=1))
+    self.dropout = nn.Dropout(args.dropout)
+
+  def _trunk(self, seq_onehot, t):
+    time_emb = F.relu(self.time_embedder(t))
+    feat = F.relu(self.linear(seq_onehot.permute(0, 2, 1)))
+    for i in range(self.num_layers):
+      h = self.dropout(feat.clone())
+      h = h + self.time_layers[i](time_emb)[:, :, None]
+      h = self.norms[i](h.permute(0, 2, 1))
+      h = F.relu(self.convs[i](h.permute(0, 2, 1)))
+      feat = h + feat if h.shape == feat.shape else h
+    return self.final_conv(feat).permute(0, 2, 1)
+
+  def forward(self, seq, t):
+    onehot = F.one_hot(seq, num_classes=self.alphabet_size).float()
+    return self._trunk(onehot, t)
+
+  def forward2(self, seq_onehot, t):
+    return self._trunk(seq_onehot.float(), t)
+
+
+# ---------------------------------------------------------------------------
+# Noise schedules (reference noise_schedule.py): total_noise(t) = sigma(t)
+# and rate_noise(t) = dsigma/dt, torch ops on a t tensor.
+# ---------------------------------------------------------------------------
+
+
+class CosineNoise:
+  def __init__(self, eps: float = 1e-3):
+    self.eps = eps
+
+  def rate_noise(self, t):
+    cos = (1 - self.eps) * torch.cos(t * torch.pi / 2)
+    sin = (1 - self.eps) * torch.sin(t * torch.pi / 2)
+    return (torch.pi / 2) * sin / (cos + self.eps)
+
+  def total_noise(self, t):
+    cos = torch.cos(t * torch.pi / 2)
+    return -torch.log(self.eps + (1 - self.eps) * cos)
+
+
+class CosineSqrNoise:
+  def __init__(self, eps: float = 1e-3):
+    self.eps = eps
+
+  def rate_noise(self, t):
+    cos = (1 - self.eps) * (torch.cos(t * torch.pi / 2) ** 2)
+    sin = (1 - self.eps) * torch.sin(t * torch.pi)
+    return (torch.pi / 2) * sin / (cos + self.eps)
+
+  def total_noise(self, t):
+    cos = torch.cos(t * torch.pi / 2) ** 2
+    return -torch.log(self.eps + (1 - self.eps) * cos)
+
+
+class Linear:
+  def __init__(self, sigma_min: float = 0.0, sigma_max: float = 10.0):
+    self.sigma_min = torch.tensor(sigma_min)
+    self.sigma_max = torch.tensor(sigma_max)
+
+  def rate_noise(self, t):
+    return (self.sigma_max - self.sigma_min) * torch.ones_like(t)
+
+  def total_noise(self, t):
+    return self.sigma_min + t * (self.sigma_max - self.sigma_min)
+
+
+class GeometricNoise:
+  def __init__(self, sigma_min: float = 1e-3, sigma_max: float = 1.0):
+    self.sigmas = 1.0 * torch.tensor([sigma_min, sigma_max])
+
+  def rate_noise(self, t):
+    return (self.sigmas[0] ** (1 - t) * self.sigmas[1] ** t
+            * (self.sigmas[1].log() - self.sigmas[0].log()))
+
+  def total_noise(self, t):
+    return self.sigmas[0] ** (1 - t) * self.sigmas[1] ** t
+
+
+class LogLinearNoise:
+  """sigma(t) = -log(1 - (1 - eps) t): the masking probability
+  1 - exp(-sigma) is linear in t."""
+
+  def __init__(self, eps: float = 1e-3):
+    self.eps = eps
+
+  def rate_noise(self, t):
+    return (1 - self.eps) / (1 - (1 - self.eps) * t)
+
+  def total_noise(self, t):
+    return -torch.log1p(-(1 - self.eps) * t)
